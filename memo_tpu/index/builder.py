@@ -1,6 +1,6 @@
 """Index construction pipeline: genome list -> IntervalStore.
 
-The TPU-native replacement for the reference's bash orchestration
+The replacement for the reference's bash orchestration
 (reference index.sh): no per-stage text files — FASTA records go straight
 through the in-repo matching-statistics engine into dense int32 MS arrays,
 then through vectorized MEM/overlap extraction into the sorted interval

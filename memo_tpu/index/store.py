@@ -1,4 +1,4 @@
-"""The MEMO-TPU index: an HBM-friendly sorted struct-of-arrays interval store.
+"""The MEMO index: a device-friendly sorted struct-of-arrays interval store.
 
 Replaces the reference's on-disk BED -> ZSTD Parquet index
 (reference parquet_compress_bed.py:16-39) with in-memory int arrays sorted by
@@ -85,8 +85,8 @@ class IntervalStore:
             raise KeyError(f"record {name!r} not in index ({self.record_names})") from None
 
     def query_layout(self) -> "QueryLayout":
-        """Pre-sorted event layout for the fused Pallas query path (computed
-        once, cached). See ops/pallas_query.py for why these orders exist."""
+        """Pre-sorted event views of the store (computed once, cached); see
+        :class:`QueryLayout`."""
         lay = getattr(self, "_query_layout", None)
         if lay is None:
             lay = QueryLayout.build(self)
@@ -163,7 +163,7 @@ class IntervalStore:
 
 @dataclass
 class QueryLayout:
-    """Pre-sorted event views of an IntervalStore for the fused query kernel.
+    """Pre-sorted event views of an IntervalStore for event-stream queries.
 
     Query-time shadow casting (st = start − qs, ce = end − qs − (k−1),
     reference memo_query.py:46-47) is rank-preserving in ``start`` and
@@ -253,8 +253,7 @@ class QueryLayout:
     def prefix_counts(self, store: "IntervalStore", r: int, qs: int, k: int) -> np.ndarray:
         """int64[C] per-column count of intervals marking window position 0:
         ``#{i in record r, order c: end_i <= qs+k-1 < ... and start_i > qs}``
-        — the coverage carried into the window from its left (see
-        ops/pallas_query.py docstring, observation 2)."""
+        — the coverage carried into the window from its left."""
         C = store.n_docs
         E0 = qs + k - 1
         out = np.zeros(C, np.int64)

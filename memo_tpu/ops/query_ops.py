@@ -1,4 +1,4 @@
-"""Dense TPU formulation of the MEMO query.
+"""Dense device formulation of the MEMO query.
 
 The reference's hot kernel is a ragged per-interval slice write
 (reference memo_query.py:57-63, numba):
@@ -6,8 +6,8 @@ The reference's hot kernel is a ragged per-interval slice write
     for start, casted_end, order in mem_arr:
         rec[casted_end:start, order] = set_bit
 
-which is scatter-hostile on SIMD hardware. The TPU formulation turns it into
-a difference array + prefix sum, fully dense and static-shaped:
+a ragged write of data-dependent length. The device formulation turns it
+into a difference array + prefix sum, fully dense and static-shaped:
 
     coverage[p, c] = #{intervals i: order_i == c and ce_i <= p < st_i}
                    = cumsum_p( +1 at ce_i, -1 at st_i )

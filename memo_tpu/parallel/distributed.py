@@ -9,15 +9,15 @@ over all devices — the same mesh the single-host path uses
 Sharding layout guidance (how the axes map to the interconnect):
 
 - ``dp`` (window batches) is communication-free -> lay it across HOSTS so
-  the only traffic that would cross DCN is none at all.
-- ``sp`` (positions or intervals) stays WITHIN a host/slice so the
-  interval-strategy ``psum`` rides ICI.
+  the only traffic that would cross the network is none at all.
+- ``sp`` (positions or intervals) stays WITHIN a host so the
+  interval-strategy ``psum`` is an NCCL collective over NVLink.
 
 ``make_global_mesh`` encodes exactly that: dp = number of processes,
 sp = local device count, with mesh axes ordered (dp, sp) over
 ``jax.devices()`` (which enumerates devices process-major).
 
-Hermetic testing without a pod: ``jax.distributed`` also accepts a
+Hermetic testing without a cluster: ``jax.distributed`` also accepts a
 single-process "cluster" (num_processes=1), and the virtual CPU mesh
 (tests/conftest.py) exercises the same shard_map programs on 8 fake
 devices.
@@ -42,7 +42,8 @@ def initialize(
 
     With no arguments, reads the standard env vars
     (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or lets
-    JAX auto-detect on supported platforms (TPU pods auto-configure).
+    JAX auto-detect on the platforms it supports (a cluster manager such as
+    SLURM); a bare GPU host needs all three.
     Single-process runs may skip calling this entirely.
     """
     import jax
@@ -75,7 +76,7 @@ def initialize(
 
 def make_global_mesh():
     """(dp, sp) mesh with dp across hosts (no traffic) and sp within a host
-    (psum over ICI). On one host this is (1, n_devices)."""
+    (psum over NVLink). On one host this is (1, n_devices)."""
     import jax
 
     return make_mesh(dp=jax.process_count(), sp=jax.local_device_count())

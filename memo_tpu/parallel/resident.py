@@ -63,7 +63,7 @@ def _resident_fn_multi(
     mesh: Mesh, n_batch: int, B: int, M: int, C: int, n_docs: int, membership: bool
 ):
     """Multi-record SPMD program: the ``dp`` mesh axis serves DISTINCT
-    records (VERDICT r4 #7 — replicas used to idle there), and ``n_batch``
+    records (replicas used to idle there), and ``n_batch``
     stacks further records per dp rank when records > n_dp.
 
     Global inputs: int32[n_batch, n_dp, n_sp, M] sharded P(None,'dp','sp',∅).
@@ -153,7 +153,7 @@ class ResidentShardedQuery:
         """``records`` places SEVERAL records in one multi-record placement:
         record i goes to dp rank ``i % n_dp`` (batch slot ``i // n_dp``), so
         the ``dp`` mesh axis serves distinct records instead of idle
-        replicas (VERDICT r4 #7), and ONE SPMD dispatch per (k, mode)
+        replicas, and ONE SPMD dispatch per (k, mode)
         answers all of them. ``record=`` keeps the single-record placement
         (arrays [n_sp, M], no batch dims)."""
         if store.kind not in ("conservation", "membership"):
@@ -248,9 +248,9 @@ class ResidentShardedQuery:
         self._d_end = jax.device_put(ends, sh)
         self._d_order = jax.device_put(orders, sh)
         # Whole-record outputs are memoized per (k, mode): every window of a
-        # (record, k) batch is a slice of ONE SPMD dispatch (VERDICT r3 #3 —
-        # the CLI's N-window regions file must not pay N full-record
-        # dispatches). Bounded LRU: a k sweep cannot accumulate stale HBM.
+        # (record, k) batch is a slice of ONE SPMD dispatch (the CLI's
+        # N-window regions file must not pay N full-record dispatches).
+        # Bounded LRU: a k sweep cannot accumulate stale HBM.
         self._full_cache: dict[tuple[int, bool], object] = {}
         self._full_cache_cap = 4
         self.dispatch_count = 0  # test survey point: == #distinct (k, mode)

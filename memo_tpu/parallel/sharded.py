@@ -1,9 +1,9 @@
 """Multi-device SPMD query execution over a ``jax.sharding.Mesh``.
 
 The reference is a single-process CPU tool (SURVEY §5: no distributed layer).
-This module is the scale-out story of the TPU-native engine: query batches run
-SPMD over a 2-D device mesh with XLA collectives over ICI — no NCCL/MPI-style
-code, just shardings.
+This module is the engine's scale-out story: query batches run SPMD over a
+2-D device mesh; XLA lowers the one collective to NCCL over NVLink — no
+hand-written communication code, just shardings.
 
 Mesh axes and what they shard:
 
@@ -19,7 +19,7 @@ Mesh axes and what they shard:
     No collectives; outputs concatenate exactly.
   * ``interval``: the candidate interval set is split across devices; each
     device builds partial coverage counts for the full window and a single
-    ``psum`` over ICI combines them (coverage counts are additive over any
+    ``psum`` over NVLink combines them (coverage counts are additive over any
     partition of the interval set — query_ops.coverage_counts).
 
 ``position`` is this class's default (zero communication, HBM-local
@@ -30,9 +30,9 @@ device-resident store (parallel/resident.py) for dense/many-window batches,
 which the recorded scaling data favors at every mesh size.
 
 Multi-host: the same code runs under ``jax.distributed.initialize`` with a
-``(hosts × chips)`` mesh — ``dp`` laid out across hosts (DCN) and ``sp``
-within a slice (ICI), so the only collective (interval-strategy psum) rides
-ICI. Hermetic multi-process testing uses the 8-device virtual CPU mesh
+``(hosts × cards)`` mesh — ``dp`` laid out across hosts (the network) and
+``sp`` within a host (NVLink), so the only collective (interval-strategy
+psum) stays on NVLink. Hermetic multi-process testing uses the 8-device virtual CPU mesh
 (tests/conftest.py).
 """
 
@@ -104,7 +104,7 @@ def _batch_fn(mesh: Mesh, L: int, C: int, n_docs: int, membership: bool, strateg
         in_specs = (P("dp", None), P("dp", None), P("dp", None), P("dp"), P())
         out_specs = P("dp", "sp", None) if membership else P("dp", "sp")
     elif strategy == "interval":
-        # Intervals sharded; partial coverage counts combined over ICI with
+        # Intervals sharded; partial coverage counts combined over NCCL with
         # psum_scatter along the position axis (half the ring traffic of a
         # full psum, and the C-wide count tensor is never all-gathered —
         # each shard reduces its own L/n_sp slab to marks/conservation and

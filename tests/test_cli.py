@@ -213,8 +213,8 @@ def test_query_regions_file_resident_strategy(built_index, tmp_path):
 
 
 def test_query_regions_file_batched_strategy(built_index, tmp_path):
-    """--strategy batched serves all windows of a record from ONE on-device
-    fori_loop dispatch, byte-identical to the single-device path."""
+    """--strategy batched answers a record's windows on one device through
+    the engine's batch API, byte-identical to the single-device path."""
     regions = tmp_path / "regions.txt"
     regions.write_text("piv_1:0-40\npiv_1:10-30\n")
     prefix = tmp_path / "bat"
@@ -225,7 +225,6 @@ def test_query_regions_file_batched_strategy(built_index, tmp_path):
             "-k", "3",
             "--regions-file", str(regions),
             "--strategy", "batched",
-            "--backend", "pallas",
             "-o", str(prefix),
         ]
     )
@@ -246,7 +245,7 @@ def test_query_regions_file_batched_strategy(built_index, tmp_path):
 
 def test_pick_batch_strategy_auto():
     """--strategy auto: resident for dense/many-window batches, position for
-    scattered small windows over huge records (VERDICT r3 #5)."""
+    scattered small windows over huge records."""
     import numpy as np
 
     from memo_tpu.cli import pick_batch_strategy

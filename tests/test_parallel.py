@@ -1,7 +1,7 @@
 """Multi-device sharded query == single-device engine, bit-exact.
 
 Runs on the 8-device virtual CPU mesh (conftest.py) — the hermetic stand-in
-for a TPU slice (SURVEY §4 point 4)."""
+for a multi-GPU host (SURVEY §4 point 4)."""
 
 import jax
 import numpy as np

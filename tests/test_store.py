@@ -6,6 +6,7 @@ import pytest
 from memo_tpu.index.builder import store_from_ms
 from memo_tpu.index.store import IntervalStore
 from memo_tpu.io import compat
+from tests.ms_stores import random_store
 
 
 def _store():
@@ -127,3 +128,31 @@ def test_stats():
     s = _store()
     st = s.stats()
     assert st["records"] == 2 and st["n_docs"] == 4 and st["intervals"] == s.num_intervals
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["monotone", "random"])
+def ms_store(request):
+    return random_store(np.random.default_rng(3), request.param), request.param
+
+
+def test_query_layout_monotone_flag(ms_store):
+    store, monotone = ms_store
+    lay = store.query_layout()
+    if monotone:
+        # True-MS stores must take the fast searchsorted prefix path.
+        assert lay.monotone
+
+
+def test_prefix_counts_match_bruteforce(ms_store):
+    store, _ = ms_store
+    lay = store.query_layout()
+    for r in range(store.num_records):
+        lo, hi = store.rec_offsets[r], store.rec_offsets[r + 1]
+        s, e, o = store.start[lo:hi], store.end[lo:hi], store.order[lo:hi]
+        for qs, k in [(0, 3), (100, 31), (350, 1), (699, 101)]:
+            want = np.zeros(store.n_docs, np.int64)
+            m = (e <= qs + k - 1) & (s > qs)
+            for c in o[m]:
+                want[c] += 1
+            got = lay.prefix_counts(store, r, qs, k)
+            np.testing.assert_array_equal(got, want, err_msg=f"r={r} qs={qs} k={k}")
